@@ -22,8 +22,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--backend",
         default="auto",
-        choices=["auto", "numpy", "native", "jax", "pallas"],
-        help="pairwise alignment backend (auto picks by device and size)",
+        choices=["auto", "numpy", "native", "jax", "device"],
+        help="pairwise alignment backend (auto picks by device and size;"
+        " device needs a CUDA GPU)",
     )
     parser.add_argument(
         "--input", default=None, help="read problem from file instead of stdin"
@@ -43,9 +44,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--distributed",
         action="store_true",
-        help="initialize the JAX distributed runtime (multi-host run); on"
-        " TPU pods the cluster is auto-detected, otherwise pass"
-        " --coordinator/--num-processes/--process-id",
+        help="initialize the JAX distributed runtime (one process per GPU);"
+        " pass --coordinator/--num-processes/--process-id",
     )
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     parser.add_argument("--num-processes", type=int, default=None)
@@ -53,9 +53,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--platform",
         default=None,
-        help="force the JAX platform (e.g. cpu); needed for CPU"
-        " multi-process runs where the environment pins a TPU platform"
-        " in the live config before main() runs",
+        help="force the JAX platform (e.g. cpu), also where jax was"
+        " imported with another platform before main() runs",
     )
     parser.add_argument(
         "--profile-dir",
@@ -89,22 +88,27 @@ def main(argv=None) -> int:
         problem = parse_input(sys.stdin)
 
     from msa_tpu.config import DEFAULT
+    from msa_tpu.ops.nw_gpu import NoGpuError
     from msa_tpu.utils.timing import profile
 
     start = time.time_ns() // 1000
-    with profile(args.profile_dir or DEFAULT.profile_dir):
-        if args.batched or args.distributed:
-            from msa_tpu.parallel.engine import align_kway_sharded
+    try:
+        with profile(args.profile_dir or DEFAULT.profile_dir):
+            if args.batched or args.distributed:
+                from msa_tpu.parallel.engine import align_kway_sharded
 
-            result = align_kway_sharded(
-                problem, backend=args.backend, checkpoint=args.checkpoint
-            )
-        else:
-            from msa_tpu.models.kway import align_kway
+                result = align_kway_sharded(
+                    problem, backend=args.backend, checkpoint=args.checkpoint
+                )
+            else:
+                from msa_tpu.models.kway import align_kway
 
-            result = align_kway(
-                problem, backend=args.backend, checkpoint=args.checkpoint
-            )
+                result = align_kway(
+                    problem, backend=args.backend, checkpoint=args.checkpoint
+                )
+    except NoGpuError as e:
+        sys.stderr.write(f"msa_tpu: {e}\n")
+        return 1
     elapsed = time.time_ns() // 1000 - start
 
     # Every process computes the identical result; only process 0 owns

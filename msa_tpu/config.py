@@ -4,10 +4,8 @@ The reference had no flags at all — its config surfaces were compile-time
 constants (``n_threads = 16`` at ``submit/xuliny-seqalkway.cpp:94``, the
 ``*8`` tile fudge at ``submit:452``) and Slurm environment (SURVEY.md §5).
 Here every tunable is an explicit dataclass field, overridable from
-environment variables prefixed ``MSA_TPU_`` *before first import of the
-kernel modules* (the kernels read ``DEFAULT`` at import time: these values
-size compiled programs, so they are process-lifetime constants just like
-the reference's, but with one declared home and an env override).
+environment variables prefixed ``MSA_TPU_``, read once when this module is
+first imported.
 """
 
 from __future__ import annotations
@@ -19,101 +17,33 @@ from typing import Optional
 
 @dataclasses.dataclass
 class EngineConfig:
-    # Pairwise backend: numpy | native | jax | pallas | auto
+    # Pairwise backend: numpy | native | jax | device | auto
     backend: str = "auto"
-    # Fill band height for the score-only path (shrunk to the sequence).
-    score_rb: int = 8192
-    # Fill band height for the alignment path. Fixed per process so every
-    # pair shares one compiled kernel; v_len = round_up(rb_align+1, 128*128).
-    # 32640 measured best on big13 (16256: less ramp waste but more steps at
-    # a fixed per-step cost -> slower; see ops/pallas_walk.py).
-    rb_align: int = 32640
-    # Snapshot stride of the fill == traceback segment length of the walk
-    # (they seed each other, so one knob). 1024 measured best (512: 2x the
-    # walk's per-slot fixed overhead; see docs/PERF.md).
-    snap_k: int = 1024
-    # Big-pair fill strategy: "auto" (route per workload shape — many
-    # pairs ride the conveyor, few giant pairs the per-pair banded path;
-    # models/kway logs the decision), "conveyor" (band-interleaved single
-    # sweep, zero ramp waste) or "banded" (per-pair band sweeps,
-    # ops/batch). The reference's real lesson was strategy selection by
-    # workload (its S1..S7 evolution, SURVEY.md §2.2) — "auto" is that
-    # lesson applied to the fill.
-    fill_mode: str = "auto"
-    # Conveyor band height: must be a multiple of snap_k so band starts and
-    # boundary-row flushes stay K-aligned (31 * 1024).
-    rb_conveyor: int = 31744
-    # Pairs per walk launch, riding the VPU sublane dim. 8 measured best
-    # (16: 91.5 vs 93.2 GCUPS at the time of measurement).
-    p_group: int = 8
-    # Conveyor fill segments per workload: the sweep is dispatched as this
-    # many equal chunk ranges (state carried through aliased buffers) so
-    # walks and host decode of early-finishing pairs overlap the rest of
-    # the fill. 1 = the r3 single-dispatch behavior.
-    fill_segments: int = 4
-    # Conveyor walk groups per dispatch (lax.scan chunk). Each dispatch and
-    # each result fetch pays tens of ms of link latency here; scanning
-    # several groups per call amortizes it while leaving enough calls for
-    # host decode to overlap the device's remaining walks.
-    walk_scan_groups: int = 4
-    # Below this m*n, pairs run on the jnp full-dirs path instead of the
-    # banded Pallas fill + walk.
+    # Below this m*n, pairs run on the host or the jnp sweep instead of the
+    # device fill + walk (ops/nw_gpu). Set on an earlier accelerator; not
+    # measured on the H100.
     small_threshold: int = 1 << 21
     # Bucket quantum for padded shapes (bounds recompilation).
     bucket_quantum: int = 256
-    # Max supported sequence length (the spec's ~100k, Project2B.pdf p.5);
-    # sizes the compiled band grid (X_CAP / Y_CAP).
-    max_seq_len: int = 100_352
     # Pair schedule policy for the multi-process engine: "calibrated" (LPT
     # over the measured wall-clock model: process 0 calibrates on its
-    # accelerator — cached on disk, so ~free after first use — and
-    # broadcasts the parameters so every process derives the identical
-    # schedule; falls back to "lpt" when calibration is unavailable),
-    # "lpt" (cost = m*n, the reference's proven testing8 design), or
-    # "block" (the reference's S1 layout, kept for parity). Calibrated
-    # beats analytic LPT on skewed workloads (5.85 vs 7.36 s makespan,
-    # artifacts/schedule_compare_r4.json) because the fixed per-pair
-    # dispatch cost dominates tiny pairs.
+    # GPU — cached on disk, so ~free after first use — and broadcasts the
+    # parameters so every process derives the identical schedule; falls
+    # back to "lpt" when calibration is unavailable), "lpt" (cost = m*n,
+    # the reference's proven testing8 design), or "block" (the reference's
+    # S1 layout, kept for parity).
     schedule_policy: str = "calibrated"
-    # Local devices to shard the alignment pipeline over WITHIN one process
-    # (a real TPU host is 1 process x 4-8 chips). 0 = all local devices;
-    # 1 = single-device (the pre-r4 behavior). Pairs are LPT-split and each
-    # device runs the full fill+walk pipeline concurrently (models/kway).
+    # Local devices to shard the big pairs over WITHIN one process.
+    # 0 = all local devices; 1 = single-device. Pairs are LPT-split and
+    # each device runs the full fill + walk + decode (models/kway).
     local_devices: int = 0
     # Route a workload whose ONLY big pair cannot be pair-parallelized
     # through the band-striped cross-device fill (ops/nw_striped): every
     # local device fills a row stripe, boundary rows stream over the
-    # mesh in K-chunks. Opt-in (0 = off): on a single-chip host the
-    # banded kernel is strictly better.
+    # mesh in K-chunks. Opt-in (0 = off).
     single_pair_striped: int = 0
-    # Issue each pair's next-slot seed/feed DMAs at the end of its walk
-    # (overlapped with the remaining pairs' walks) instead of at the next
-    # slot's entry. 0 = the r4 entry-issue behavior (A/B knob).
-    walk_prefetch: int = 1
-    # Moves per fast-loop iteration of the scalar walk (the loop guard
-    # costs ~3 compares per burst; bigger bursts amortize it, with up to
-    # burst-1 extra boundary moves falling to the exact slow loop).
-    walk_burst: int = 4
-    # Walk slot-budget granularity: "chunk" sizes g8 per scan chunk
-    # (fewer slots for small-pair chunks, 2-3 compiled shapes), "global"
-    # one workload-wide budget (the r4 behavior, 1 shape). Runtime knob —
-    # it only picks dispatch shapes, both compile lazily.
-    walk_g8_mode: str = "chunk"
-    # HBM budget in bytes for the conveyor's snapshot table. 0 = query the
-    # device (memory_stats bytes_limit, minus headroom for brow/feeds/walk
-    # buffers) with a 12 GiB fallback when the device doesn't report.
-    # Workloads whose snapshot table exceeds the budget are split into
-    # multiple conveyor sweeps automatically (ops/conveyor).
-    hbm_budget: int = 0
-    # Host threads decoding fetched walk chunks (numpy + sha512 release
-    # the GIL for their bulk, so > cpu_count still helps hide latency).
-    decode_workers: int = 4
     # Emit jax.profiler traces to this directory when set.
     profile_dir: Optional[str] = None
-    # Run the Pallas kernels in interpret mode and allow the batched device
-    # pipeline on the CPU backend (CI: the multi-process pod path with small
-    # geometry; see tests/test_multiprocess.py).
-    interpret: int = 0
 
     @classmethod
     def from_env(cls, **overrides) -> "EngineConfig":

@@ -6,8 +6,8 @@ One pair = one Needleman–Wunsch DP + traceback + trim (the reference's
 - ``numpy``  — vectorized host oracle (golden reference; CI-safe).
 - ``native`` — C++ host kernel via ctypes (fast CPU path), falls back to
                numpy when the shared library is unavailable.
-- ``jax``    — jnp anti-diagonal sweep (runs on TPU or CPU).
-- ``pallas`` — Pallas TPU wavefront kernels (the production path).
+- ``jax``    — jnp anti-diagonal sweep (any JAX platform).
+- ``device`` — the CUDA fill and walk of ``ops/nw_gpu`` (needs a GPU).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ class PairResult:
     problem_hash: str
 
 
-_BACKENDS = ("numpy", "native", "jax", "pallas", "auto")
+_BACKENDS = ("numpy", "native", "jax", "device", "auto")
 
 
 def align_pair(
@@ -48,56 +48,44 @@ def align_pair(
         from msa_tpu.ops.nw_jax import nw_align_jax
 
         return nw_align_jax(x, y, pxy, pgap)
-    if backend == "pallas":
+    if backend == "device":
         from msa_tpu.config import DEFAULT
+        from msa_tpu.ops.nw_gpu import align_pairs
 
+        # Neither threshold has been measured on the H100: both were set
+        # on an earlier accelerator and are kept until a card measurement
+        # moves them. Below _HOST_THRESHOLD the host C++ kernel runs; below
+        # small_threshold the jnp sweep, which compiles in seconds.
         if len(x) * len(y) < _HOST_THRESHOLD:
-            # Tiny pairs never belong on the device: one dispatch costs
-            # ~80 ms on this link, while the native host kernel finishes
-            # in microseconds (measured: mseq1's 36 tiny pairs took
-            # 2.86 s warm through per-pair jnp dispatches,
-            # artifacts/warm_latency_r5.json pre-fix). Same byte-exact
-            # output — all backends are golden-tested equal.
             from msa_tpu.native import nw_align_native
 
             return nw_align_native(x, y, pxy, pgap)
         if len(x) * len(y) < DEFAULT.small_threshold:
-            # Small pairs take the jnp full-dirs device path: identical
-            # alignment (tie-break tested vs the oracle), but a
-            # seconds-long compile instead of the banded Pallas
-            # mega-kernels, which are sized by max_seq_len and cost
-            # minutes of cold compile — only worth paying for big pairs.
-            # (The r3 conformance run spent 763 s on mseq.dat's three
-            # 8-char pairs exactly here.)
             from msa_tpu.ops.nw_jax import nw_align_jax
 
             return nw_align_jax(x, y, pxy, pgap)
-        from msa_tpu.ops.pallas_nw import nw_align_pallas
-
-        return nw_align_pallas(x, y, pxy, pgap)
+        return align_pairs([x, y], [(0, 1)], pxy, pgap)[0]
     raise ValueError(f"unknown backend {backend!r}; expected one of {_BACKENDS}")
 
 
-# Below this many DP cells the host kernel beats ANY device dispatch
-# (link latency ~tens of ms; the native fill does 262k cells in ~1 ms).
+# Below this many DP cells the host kernel runs (the native fill does 262k
+# cells in about a millisecond). Not measured on the H100.
 _HOST_THRESHOLD = 1 << 18
 
 
 def _pick_backend(m: int, n: int) -> str:
-    """Heuristic dispatch: tiny pairs stay on host, big pairs go to device."""
+    """Tiny pairs stay on the host; on a GPU, bigger pairs go to the device.
+
+    On the CPU, ``auto`` is the host path: the native kernel, or numpy
+    where there is no C++ compiler.
+    """
     import jax
 
-    on_accel = jax.default_backend() not in ("cpu",)
-    if on_accel and m * n >= _HOST_THRESHOLD:
-        return "pallas"
-    try:
-        from msa_tpu.native import native_available
+    if jax.default_backend() == "gpu" and m * n >= _HOST_THRESHOLD:
+        return "device"
+    from msa_tpu.native import native_available
 
-        if native_available():
-            return "native"
-    except Exception:
-        pass
-    return "numpy"
+    return "native" if native_available() else "numpy"
 
 
 class PairwiseAligner:

@@ -2,8 +2,9 @@
 
 Native equivalents of the reference's C++ components: the sequential NW
 oracle (``seqalign-mpi-skeleton.cpp:186-280``) and the traceback walker.
-Built by ``msa_tpu/native/build.py`` into ``libmsanative.so``; every entry
-point gracefully reports unavailability so pure-Python environments work.
+Built from source at first use by ``msa_tpu/native/build.py``; a host with
+no C++ compiler reports the kernel unavailable, a failing build raises.
+The CUDA fill and walk (``nw_cuda.cu``) are loaded by ``msa_tpu.ops.nw_gpu``.
 """
 
 from __future__ import annotations

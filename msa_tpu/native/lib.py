@@ -1,49 +1,46 @@
-"""ctypes loader for the native host kernels (placeholder until built).
+"""ctypes loader for the native host kernels.
 
-The shared library is compiled on demand by ``msa_tpu/native/build.py``.
-Until it exists, the numpy oracle is used transparently.
+The shared library is compiled from ``msanative.cpp`` at first use
+(``msa_tpu/native/build.py``) into a git-ignored directory. A host without
+a C++ compiler has no native kernel (``native_available()`` is False and
+``backend="auto"`` uses numpy); a compiler that fails raises, it is never
+papered over.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
+import threading
 from typing import Optional, Tuple
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
-
-
-def _lib_path() -> str:
-    return os.path.join(os.path.dirname(__file__), "libmsanative.so")
+_LOCK = threading.Lock()
 
 
 def _load() -> Optional[ctypes.CDLL]:
     global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    path = _lib_path()
-    if not os.path.exists(path):
-        try:
-            from msa_tpu.native.build import build
+    with _LOCK:
+        if _TRIED:
+            return _LIB
+        from msa_tpu.native.build import build, host_compiler
 
-            build()
-        except Exception:
+        if host_compiler() is None:
+            from msa_tpu.utils.logging import get_logger
+
+            get_logger("msa_tpu.native").warning(
+                "no C++ compiler: native host kernel unavailable"
+            )
+            _TRIED = True
             return None
-    if os.path.exists(path):
-        try:
-            lib = ctypes.CDLL(path)
-            _configure(lib)
-            _LIB = lib
-        except OSError:
-            _LIB = None
-    return _LIB
+        lib = ctypes.CDLL(build())
+        _configure(lib)
+        _LIB = lib
+        _TRIED = True
+        return _LIB
 
 
 def _configure(lib: ctypes.CDLL) -> None:
-    import numpy as np  # noqa: F401
-
     lib.nw_score.restype = ctypes.c_int
     lib.nw_score.argtypes = [
         ctypes.c_char_p,
@@ -71,12 +68,15 @@ def native_available() -> bool:
     return _load() is not None
 
 
-def nw_score_native(x: str, y: str, pxy: int, pgap: int) -> int:
+def _require() -> ctypes.CDLL:
     lib = _load()
     if lib is None:
-        from msa_tpu.ops.reference import nw_score_numpy
+        raise RuntimeError("native backend needs a C++ compiler (g++)")
+    return lib
 
-        return nw_score_numpy(x, y, pxy, pgap)
+
+def nw_score_native(x: str, y: str, pxy: int, pgap: int) -> int:
+    lib = _require()
     return int(
         lib.nw_score(x.encode(), len(x), y.encode(), len(y), pxy, pgap)
     )
@@ -85,11 +85,7 @@ def nw_score_native(x: str, y: str, pxy: int, pgap: int) -> int:
 def nw_align_native(
     x: str, y: str, pxy: int, pgap: int
 ) -> Tuple[int, str, str]:
-    lib = _load()
-    if lib is None:
-        from msa_tpu.ops.reference import nw_align_numpy
-
-        return nw_align_numpy(x, y, pxy, pgap)
+    lib = _require()
     m, n = len(x), len(y)
     buf1 = ctypes.create_string_buffer(m + n + 1)
     buf2 = ctypes.create_string_buffer(m + n + 1)
@@ -104,4 +100,3 @@ def nw_align_native(
         buf1.raw[:la].decode("latin-1"),
         buf2.raw[:la].decode("latin-1"),
     )
-

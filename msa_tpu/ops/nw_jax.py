@@ -1,13 +1,13 @@
 """Anti-diagonal Needleman–Wunsch sweep in pure jnp (XLA-compiled).
 
-TPU-first re-design of the reference's OpenMP wavefront kernel
+A re-design of the reference's OpenMP wavefront kernel
 (``submit/xuliny-seqalkway.cpp:419-566``): instead of a tile grid over
 threads, one ``lax.scan`` walks the m+n anti-diagonals; each step is a
-vectorized VPU update over a whole diagonal. Memory is O(min-side) for
+vectorized update over a whole diagonal. Memory is O(min-side) for
 scores; the dirs matrix (for traceback) is emitted per-diagonal and
-reassembled. Big pairs use the banded Pallas fill + walk
-(``msa_tpu.ops.pallas_walk``) instead; sharded checkpoint emission for
-giant pairs lives in ``msa_tpu.ops.nw_sp``.
+reassembled. Big pairs use the device fill + walk (``msa_tpu.ops.nw_gpu``)
+instead; sharded checkpoint emission for giant pairs lives in
+``msa_tpu.ops.nw_sp``.
 
 Shapes are static (bucket-padded); actual lengths ``m, n`` ride in as traced
 scalars, so one compiled program serves a whole shape bucket.
@@ -208,8 +208,8 @@ def nw_align_jax(x: str, y: str, pxy: int, pgap: int) -> Tuple[int, str, str]:
     device->host fetch, which is why the adversarial conformance run never
     finished in rounds 1-3. Transposed runs flip the up/left tie-break
     (``swap``) and swap the alignments back, preserving the reference's
-    byte-exact output. Big pairs use the banded Pallas fill + walk
-    (``msa_tpu.ops.pallas_walk``) instead.
+    byte-exact output. Big pairs use the device fill + walk
+    (``msa_tpu.ops.nw_gpu``) instead.
     """
     from msa_tpu.utils.alignment import moves_to_alignment
 

@@ -4,7 +4,7 @@ The reference's intra-pair axis (S3) split one DP matrix's anti-diagonals
 across OpenMP threads (``submit/xuliny-seqalkway.cpp:462-491``). The mesh
 analog shards the diagonal state vector across devices on a ``wave`` axis;
 each step every device updates its lane chunk locally and receives the one
-boundary lane it needs from its left neighbor via ``lax.ppermute`` over ICI.
+boundary lane it needs from its left neighbor via ``lax.ppermute``.
 
 This is the scaling path for a *single giant pair* (pair-level data
 parallelism, ``parallel.engine``, is the first choice whenever there are
@@ -183,14 +183,14 @@ def _segment_dirs_host(
 ) -> np.ndarray:
     """Re-derive one segment's move matrix over a narrow lane window.
 
-    Host-side analog of the Pallas walk's windowed recompute
-    (``ops/pallas_walk.py``): starting from the checkpoint diagonals at
+    A windowed recompute: starting from the checkpoint diagonals at
     ``d0`` (``ck_prev2s`` is the sweep's *shifted* diag_{d0-1} carry, so the
     window slice needs no re-shifting), run ``steps`` diagonal updates over
     global lanes ``[w0, w0+W)`` and record the reference's tie-break moves.
     Exactness: contamination climbs one lane per step from the window base,
-    and the traceback path at local step t sits at lane >= w0 + t (see the
-    window proof in pallas_walk), so every cell the walk reads is exact.
+    and the traceback path at local step t sits at lane >= w0 + t (it
+    moves at most one lane per step), so every cell the walk reads is
+    exact.
     """
     NEG = NEG_FILL
     ii = np.arange(w0, w0 + W, dtype=np.int64)

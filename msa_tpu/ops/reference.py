@@ -158,9 +158,7 @@ def nw_align_numpy_blocked(
 
     Forward pass saves every ``block``-th DP row; the traceback recomputes
     one block of rows at a time (checkpoint row -> block's dirs) and walks
-    it with the reference tie-break — the host-side analog of the device
-    walk's checkpoint-diagonal + windowed-recompute scheme
-    (``ops/pallas_walk.py``). Reference semantics:
+    it with the reference tie-break. Reference semantics:
     ``seqalign-mpi-skeleton.cpp:186-280``.
     """
     xv = seq_to_codes(x)

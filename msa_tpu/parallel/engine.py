@@ -119,16 +119,17 @@ def init_distributed(
 ) -> None:
     """Bring up the JAX distributed runtime for a multi-process run.
 
-    The TPU-native replacement for the reference's
-    ``MPI_Init_thread(MPI_THREAD_MULTIPLE)`` (``submit:38``): on real TPU
-    pods call with no arguments (cluster auto-detection); for CPU
-    multi-process runs (CI / local testing) pass coordinator address,
-    process count and id explicitly — cross-process CPU collectives ride
-    gloo over the coordination service.
+    The replacement for the reference's
+    ``MPI_Init_thread(MPI_THREAD_MULTIPLE)`` (``submit:38``). Pass the
+    coordinator address, process count and id explicitly; nothing here
+    detects a cluster. On GPUs run one process per card and give each its
+    card with the launcher's ``CUDA_VISIBLE_DEVICES``, so every process
+    sees exactly one local device. On the CPU, cross-process collectives
+    ride gloo over the coordination service.
     """
     # gloo must be selected before the CPU client is created — and probing
     # the backend here would create it, so set it unconditionally (it only
-    # affects CPU client construction; TPU runs ignore it).
+    # affects CPU client construction).
     try:
         jax.config.update("jax_cpu_collectives_implementation", "gloo")
     except Exception:

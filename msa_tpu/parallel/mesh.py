@@ -19,7 +19,10 @@ from jax.sharding import Mesh
 def get_mesh(
     n_devices: Optional[int] = None, axis_name: str = "pairs"
 ) -> Mesh:
-    devices = jax.devices()
+    # Local devices: under several processes jax.devices() lists every
+    # process's devices, and a mesh over devices this process cannot drive
+    # would hang.
+    devices = jax.local_devices()
     if n_devices is not None:
         devices = devices[:n_devices]
     return Mesh(np.array(devices), (axis_name,))

@@ -8,22 +8,13 @@ Expected values are the reference's recorded cluster outputs
 import pytest
 
 from msa_tpu.models.kway import align_kway
+from msa_tpu.utils.goldens import (  # noqa: F401  (test_parallel imports)
+    MSEQ1_HASH,
+    MSEQ1_PENALTIES,
+    MSEQ_HASH,
+    MSEQ_PENALTIES,
+)
 from msa_tpu.utils.msaio import parse_file
-
-MSEQ_HASH = (
-    "602d0f604e8fb908195d53e681094f7d063c4168a33a18f32b4ca3d29f27073a"
-    "486dca2ab98aab9eb47f5c407b5c59b8e6c0fa8ef4d07d131b8d6a66a37a065f"
-)
-MSEQ_PENALTIES = [5, 4, 9]
-
-MSEQ1_HASH = (
-    "4d676f40ea4c1e6b79f546d8c87214c5c7c18e3e55ed0844edfdc73b82bbc9f2"
-    "1b0f4a2eab30b0ddb6b499b623e23e5dd598ef7a5c7175ecfc0235ac0858c20a"
-)
-MSEQ1_PENALTIES = [
-    5, 4, 9, 12, 14, 11, 11, 10, 11, 10, 20, 22, 16, 8, 15, 36, 38, 32,
-    24, 28, 22, 31, 30, 27, 22, 20, 22, 20, 20, 22, 16, 8, 15, 0, 22, 22,
-]
 
 
 @pytest.mark.parametrize("backend", ["numpy", "native"])

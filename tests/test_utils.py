@@ -62,28 +62,11 @@ def test_moves_to_alignment_validation():
 
 
 def test_engine_config_env(monkeypatch):
-    monkeypatch.setenv("MSA_TPU_SCORE_RB", "4096")
+    monkeypatch.setenv("MSA_TPU_SMALL_THRESHOLD", "4096")
     monkeypatch.setenv("MSA_TPU_BACKEND", "numpy")
     cfg = EngineConfig.from_env()
-    assert cfg.score_rb == 4096
+    assert cfg.small_threshold == 4096
     assert cfg.backend == "numpy"
-
-
-def test_config_is_kernel_source_of_truth():
-    """The kernel modules' tunables must come FROM the config (one home)."""
-    from msa_tpu.config import DEFAULT
-    from msa_tpu.ops import batch, pallas_nw, pallas_walk
-
-    assert pallas_walk.K == pallas_nw.SNAP_K == DEFAULT.snap_k
-    assert pallas_walk.RB_ALIGN == DEFAULT.rb_align
-    assert pallas_walk.X_CAP == pallas_walk.Y_CAP == DEFAULT.max_seq_len
-    assert pallas_walk.SMALL_THRESHOLD == DEFAULT.small_threshold
-    assert batch.P_GROUP == DEFAULT.p_group
-
-    from msa_tpu.ops import conveyor
-
-    assert conveyor.RB_CONV == DEFAULT.rb_conveyor
-    assert conveyor.RB_CONV % DEFAULT.snap_k == 0
 
 
 def test_stage_timer_and_gcups():
